@@ -3,7 +3,7 @@
 Runs the jitted INNER solve one AL round at a time (max_dual_updates=1 +
 dual_warm_start) and drives candidate outer schedules in Python, so schedule
 variants iterate without re-lowering the full program.  Total inner iterations
-is the TPU-time proxy being minimized; convergence at unchanged tolerances is
+is the device-time proxy being minimized; convergence at unchanged tolerances is
 the constraint.  The winning schedule ships inside core/solve.py
 (options.adaptive_penalty); this lab stays as the measurement tool.
 
@@ -26,7 +26,7 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 from iterativelqr_tpu.utils.compile_cache import setup_compile_cache
 
-setup_compile_cache("cpu")
+setup_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np

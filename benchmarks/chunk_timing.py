@@ -5,8 +5,7 @@ latency-bound: if chunk(B=1024) costs ~= chunk(B=4096), straggler
 compaction cannot shorten the tail and the parity lever is per-iteration
 latency / tail iteration count instead.
 
-Reuses the bench's cached programs (run ``python bench.py --preset parity``
-first so the keys exist); pass the code tag printed in the cache key.
+Needs a GPU: a time from the CPU says nothing about the card.
 """
 
 import argparse
@@ -31,7 +30,7 @@ def main():
 
     from iterativelqr_tpu.utils.compile_cache import setup_compile_cache
 
-    setup_compile_cache(jax.default_backend())
+    setup_compile_cache()
 
     from iterativelqr_tpu import Options
     from iterativelqr_tpu.core.solve_sl import make_sl_parts
@@ -41,9 +40,9 @@ def main():
     T, B = args.horizon, args.batch
     dynamics, objective, constraints, x1, xT = acrobot.problem(T)
     spec = build_spec(dynamics, objective, constraints)
-    on_tpu = jax.default_backend() == "tpu"
-    kw = dict(verbose=False, record_traces=False,
-              backward_pass="packed" if on_tpu else "scan")
+    if jax.devices()[0].platform != "gpu":
+        sys.exit("chunk_timing: JAX finds no GPU")
+    kw = dict(verbose=False, record_traces=False)
     if args.preset == "tuned":
         kw.update(initial_constraint_penalty=1000.0, min_step_size=4.0e-3)
     opts = Options(**kw)

@@ -1,4 +1,4 @@
-"""Backward-pass regime map over (batch, horizon) (VERDICT r1 next #9).
+"""Backward-pass regime map over (batch, horizon).
 
 Times the scan and associative backward passes at each (B, T) grid point on
 the current backend, in isolation (the stage dominates single-instance
@@ -31,9 +31,11 @@ def main():
     args = ap.parse_args()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    if not args.cpu and jax.devices()[0].platform != "gpu":
+        sys.exit("horizon_bench: JAX finds no GPU (pass --cpu for a CPU run)")
     from iterativelqr_tpu.utils.compile_cache import setup_compile_cache
 
-    setup_compile_cache("cpu" if args.cpu else jax.default_backend())
+    setup_compile_cache()
 
     from iterativelqr_tpu.core.spec import build_spec
     from iterativelqr_tpu.models import acrobot

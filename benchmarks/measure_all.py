@@ -25,7 +25,7 @@ import numpy as np
 
 from iterativelqr_tpu.utils.compile_cache import setup_compile_cache
 
-setup_compile_cache(jax.default_backend())
+setup_compile_cache()
 
 import numpy_reference as npr
 from iterativelqr_tpu import Options
@@ -69,12 +69,9 @@ def run_numpy(np_problem, T, us0):
 def run_engine(jx_problem, T, us0, batch):
     dynamics, objective, constraints, x1, xT = jx_problem(T)
     spec = build_spec(dynamics, objective, constraints)
-    # production TPU config: packed pipeline + SL batched solver (falls back
-    # to scan/vmap automatically off-TPU and for the single-instance solve)
-    opts = Options(
-        verbose=False, record_traces=False,
-        backward_pass="packed" if jax.default_backend() == "tpu" else "scan",
-    )
+    # library defaults: batched_solver="auto" picks the batched solver by
+    # platform (parallel/batch.py::use_sl_solver)
+    opts = Options(verbose=False, record_traces=False)
     dtype = jnp.float32
     us1 = jnp.asarray(np.asarray(us0), dtype)
     # dynamically consistent warm start
@@ -118,6 +115,8 @@ def main():
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    if jax.devices()[0].platform != "gpu":
+        sys.exit("measure_all: JAX finds no GPU")
 
     backend = jax.default_backend()
     lines = [

@@ -1,11 +1,10 @@
-"""Warm-started MPC step latency (VERDICT r1 next #3; BASELINE north star
-"within real-time MPC budgets").
+"""Warm-started MPC step latency.
 
 Measures the steady-state receding-horizon step — shift previous plan,
 re-roll from the measured state, warm-started re-solve, emit first action —
 for a single acrobot controller at T=51 and T=101.  The relevant number for a
 control loop is the STEADY-STATE warm step (the plan barely changes between
-steps), not the cold solve (238ms at T=101, PARITY.md): warm inner solves run
+steps), not the cold solve: warm inner solves run
 only a handful of iterations.
 
 Plant simulation: the controller's own discrete dynamics plus a small state
@@ -68,7 +67,7 @@ def run_case(T, opts_kwargs, carry_duals, steps, dtype):
     # XLA:CPU x64 workaround: feeding the fused solve's f64 outputs back as
     # inputs to the same executable corrupts the heap (upstream aliasing
     # bug; repro in CLAUDE.md) — break the buffer chain with host copies.
-    # Never applied on TPU (would add host round trips to the measurement).
+    # Never applied on the GPU (would add host round trips to the measurement).
     host_copy = jax.default_backend() == "cpu" and dtype == jnp.float64
     for i in range(steps):
         t0 = time.perf_counter()
@@ -87,7 +86,7 @@ def run_case(T, opts_kwargs, carry_duals, steps, dtype):
         )
         x = plant(x, out.action, ws[0]) + dist
     steady = lat[5:]
-    # transient envelope (VERDICT r2 next #6): worst constraint violation
+    # transient envelope: worst constraint violation
     # across steady steps, and the longest consecutive run of infeasible
     # steps (steps-to-refeasibility after an excursion)
     tol = opts.constraint_tolerance
@@ -128,9 +127,11 @@ def main():
     args = ap.parse_args()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    if not args.cpu and jax.devices()[0].platform != "gpu":
+        sys.exit("mpc_bench: JAX finds no GPU (pass --cpu for a CPU run)")
     from iterativelqr_tpu.utils.compile_cache import setup_compile_cache
 
-    setup_compile_cache("cpu" if args.cpu else jax.default_backend())
+    setup_compile_cache()
     dtype = jnp.float64 if args.cpu else jnp.float32
     if args.cpu:
         jax.config.update("jax_enable_x64", True)

@@ -1,11 +1,14 @@
-"""Per-stage microbenchmarks (TPU analog of reference test/benchmark.jl).
+"""Per-stage microbenchmarks (analog of reference test/benchmark.jl).
 
-Times each solver stage in isolation at a given (B, T) on the current
-backend: objective/constraint evaluation, derivative stacks + AL augmentation,
+Times each solver stage in isolation at a given (B, T) on the GPU:
+objective/constraint evaluation, derivative stacks + AL augmentation,
 backward pass (scan and associative variants), closed-loop rollout, and the
-full parallel-alpha line search.  Prints one JSON line per stage.
+full parallel-alpha line search, plus the SL-layout stages of the batched
+solver.  Prints one JSON line per stage, each naming its device.  With no
+GPU it exits non-zero.
 
-Usage: python benchmarks/stage_bench.py [--batch 4096] [--horizon 101] [--cpu]
+Usage: python benchmarks/stage_bench.py [--batch 4096] [--horizon 101]
+       [--roofline]
 """
 
 import argparse
@@ -18,6 +21,21 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
 
 import jax
 import jax.numpy as jnp
+
+# Published peaks by JAX device_kind: (device-memory bytes/s, float32
+# FLOP/s outside the tensor cores).  Source: NVIDIA H100 Tensor Core GPU
+# data sheet, SXM part, dense rates at the 700 W power limit.  A device
+# that is not listed is an error, not a default.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": (3.35e12, 67e12),
+}
+
+
+def peaks(device_kind):
+    """(bytes/s, FLOP/s) for ``device_kind``; KeyError when unlisted."""
+    if device_kind not in PEAKS:
+        raise KeyError(f"no published peaks for device {device_kind!r}")
+    return PEAKS[device_kind]
 
 
 def timeit(fn, args, reps=20, warmup=2):
@@ -35,24 +53,21 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--horizon", type=int, default=101)
-    ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument(
         "--roofline", action="store_true",
         help="add XLA cost_analysis (bytes accessed / flops) per stage and "
-        "the HBM-bandwidth-bound time; also times one full SL solver body "
-        "iteration (the production per-iteration program)",
-    )
-    ap.add_argument(
-        "--hbm-gbps", type=float, default=819.0,
-        help="HBM bandwidth for the bound (GB/s; v5e ~819)",
+        "the roofline share against the device's published peaks; also "
+        "times one full SL solver body iteration",
     )
     args = ap.parse_args()
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        sys.exit(f"stage_bench: JAX finds no GPU (platform {dev.platform!r})")
+    peak_bw, peak_flops = peaks(dev.device_kind) if args.roofline else (0, 0)
     from iterativelqr_tpu.utils.compile_cache import setup_compile_cache
 
-    setup_compile_cache("cpu" if args.cpu else jax.default_backend())
+    setup_compile_cache()
 
     from iterativelqr_tpu import Options
     from iterativelqr_tpu.core.spec import build_spec
@@ -175,16 +190,17 @@ def main():
             (xs, us, ws, K, kff, duals, penalty),
         ),
     }
-    # SL-layout stages — the production batched TPU path (core/solve_sl.py):
-    # everything [T, *dims, S, 128] with the batch on the tile axes
-    if B % 1024 == 0:
+    # SL-layout stages of the batched solver (core/solve_sl.py): everything
+    # [T, *dims, S, 128] with the batch on the two trailing axes
+    from iterativelqr_tpu.ops.packed_backward import BATCH_GRAIN
+
+    if B % BATCH_GRAIN == 0:
         from iterativelqr_tpu.ops.packed_pipeline import make_derive_backward_sl
         from iterativelqr_tpu.ops.sl_ops import SLOps, to_sl
 
         S = B // 128
-        interp = jax.default_backend() != "tpu"
         sl_ops = SLOps(spec, opts)
-        derive_sl = make_derive_backward_sl(spec, opts, interpret=interp)
+        derive_sl = make_derive_backward_sl(spec, opts)
         xs_sl, us_sl, ws_sl = to_sl(xs, S), to_sl(us, S), to_sl(ws, S)
         duals_sl = to_sl(duals, S)
         pen_sl = to_sl(penalty, S)
@@ -235,33 +251,22 @@ def main():
                 stage_sl_derive_backward,
                 (xs_sl, us_sl, ws_sl, duals_sl, pen_sl, c_sl, reg_sl),
             ),
-            # forward_kernel="auto" (the default) picks the pallas rollout
-            # kernels on TPU; the explicit "scan" variant isolates their win
             "sl_line_search_full": (make_sl_ls(opts), ls_args),
-            "sl_line_search_full_scan": (
-                make_sl_ls(_dc.replace(opts, forward_kernel="scan")), ls_args
-            ),
             "sl_line_search_8alpha": (
                 make_sl_ls(_dc.replace(opts, min_step_size=4.0e-3)), ls_args
             ),
-            "sl_line_search_8alpha_scan": (
-                make_sl_ls(_dc.replace(opts, min_step_size=4.0e-3,
-                                       forward_kernel="scan")), ls_args
-            ),
         })
 
-    if args.roofline and B % 1024 == 0:
-        # one full SL solver body iteration — the program the production
-        # batched solve dispatches per iteration (core/solve_sl.py); its
-        # measured time x mean iterations is the whole-solve wall clock
-        # (minus compaction/host overhead), and its bytes-accessed / HBM
-        # bandwidth is the speed-of-light bound for the solve
+    if args.roofline and B % BATCH_GRAIN == 0:
+        # one full SL solver body iteration — the program the batched solve
+        # dispatches per iteration (core/solve_sl.py); its measured time x
+        # mean iterations is the whole-solve wall clock (minus compaction
+        # and host overhead)
         from iterativelqr_tpu.core.solve_sl import make_sl_parts
 
         parts = make_sl_parts(
             spec, _dc.replace(opts, backward_pass="packed",
                               batched_solver="sl"),
-            interpret=jax.default_backend() != "tpu",
         )
         carry0, ws_sl_full = jax.jit(parts.init)(xs, us, ws)
         jax.block_until_ready(carry0.J)
@@ -271,8 +276,8 @@ def main():
     def cost_analysis(fn, a):
         """XLA's own program cost model: bytes accessed (HBM traffic as the
         compiler scheduled it) and flops.  Pallas custom calls are opaque to
-        it — their DMA traffic is undercounted; treat kernel-stage bounds as
-        lower bounds."""
+        it — their memory traffic is not counted; treat kernel-stage bounds
+        as lower bounds."""
         try:
             an = fn.lower(*a).compile().cost_analysis()
             if isinstance(an, (list, tuple)):
@@ -288,20 +293,20 @@ def main():
             dt = timeit(fn, a, reps=args.reps)
             row = {
                 "stage": name, "ms": round(dt * 1e3, 3), "batch": B,
-                "horizon": T, "backend": jax.default_backend(),
+                "horizon": T, "platform": dev.platform,
+                "device_kind": dev.device_kind,
                 "us_per_instance": round(dt / B * 1e6, 3),
             }
             if args.roofline:
                 bytes_acc, flops = cost_analysis(fn, a)
                 if bytes_acc is not None:
-                    bound_ms = bytes_acc / (args.hbm_gbps * 1e9) * 1e3
+                    t_mem, t_flop = bytes_acc / peak_bw, flops / peak_flops
                     row.update({
                         "bytes_accessed": int(bytes_acc),
                         "flops": int(flops),
-                        "hbm_bound_ms": round(bound_ms, 4),
-                        "pct_of_bound": round(
-                            100.0 * bound_ms / (dt * 1e3), 1
-                        ) if dt > 0 else None,
+                        "bound_ms": max(t_mem, t_flop) * 1e3,
+                        "bound_by": "memory" if t_mem >= t_flop else "flops",
+                        "roofline_share": max(t_mem, t_flop) / dt,
                     })
             print(json.dumps(row), flush=True)
         except Exception as e:  # keep going; report the failure

@@ -30,9 +30,12 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
+    if jax.devices()[0].platform != "gpu":
+        sys.exit("tail_analysis: JAX finds no GPU")
+
     from iterativelqr_tpu.utils.compile_cache import setup_compile_cache
 
-    setup_compile_cache(jax.default_backend())
+    setup_compile_cache()
 
     from iterativelqr_tpu import Options
     from iterativelqr_tpu.core.spec import build_spec
@@ -42,18 +45,13 @@ def main():
     T, B = args.horizon, args.batch
     dynamics, objective, constraints, x1, xT = acrobot.problem(T)
     spec = build_spec(dynamics, objective, constraints)
-    on_tpu = jax.default_backend() == "tpu"
     if args.preset == "tuned":
         opts = Options(
             verbose=False, record_traces=False,
             initial_constraint_penalty=1000.0, min_step_size=4.0e-3,
-            backward_pass="packed" if on_tpu else "scan",
         )
     else:
-        opts = Options(
-            verbose=False, record_traces=False,
-            backward_pass="packed" if on_tpu else "scan",
-        )
+        opts = Options(verbose=False, record_traces=False)
     if args.early_cap is not None:
         import dataclasses
         opts = dataclasses.replace(opts, early_round_iteration_cap=args.early_cap)

@@ -1,7 +1,7 @@
 """Batched + sharded solve sweep — the capability the reference lacks.
 
 Solves a batch of acrobot swing-ups from perturbed initial conditions in one
-jitted program, sharded over every available device (real TPU chips, or a
+jitted program, sharded over every available device (GPUs, or a
 virtual CPU mesh via XLA_FLAGS=--xla_force_host_platform_device_count=8).
 
 Run: python examples/batched_sweep.py [--batch 512] [--horizon 51]

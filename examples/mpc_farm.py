@@ -2,10 +2,10 @@
 lockstep through the SL-layout batched solver with dual warm starts.
 
 Serving-scale MPC (one controller per vehicle/arm/plant) wants the batched
-tile-aligned solve path, not a vmap of per-instance controllers: each step
-re-solves B problems warm-started from the shifted plans, carrying AL
-multipliers (``make_batched_solve_fn(dual_warm_start=True)`` — on TPU this
-runs core/solve_sl.py; here on CPU it vmaps, same semantics).
+solve path, not a vmap of per-instance controllers: each step re-solves B
+problems warm-started from the shifted plans, carrying AL multipliers
+(``make_batched_solve_fn(dual_warm_start=True)`` — on the GPU this runs
+core/solve_sl.py; on the CPU it vmaps, same semantics).
 
 Each farm step:
   1. shift every plan one step and re-roll it from the measured state

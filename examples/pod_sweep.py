@@ -10,7 +10,7 @@ that is how the dry run and CI exercise it.
 
 The sweep solves two problem families (car obstacle + acrobot swing-up) as
 two sharded batched solves and reduces convergence statistics across the
-mesh (XLA psum over ICI/DCN).
+mesh (an XLA psum across devices).
 
 Run: python examples/pod_sweep.py [--total 65536] [--quick]
 """
@@ -74,8 +74,8 @@ def main():
     if args.quick:
         args.total = 256
 
-    # On a pod slice / cluster runner, jax.distributed auto-detects the
-    # coordinator (TPU metadata, SLURM, ...).  On a plain single-process
+    # On a cluster runner, jax.distributed auto-detects the coordinator
+    # (SLURM, ...).  On a plain single-process
     # dev box there is nothing to detect and initialize() raises exactly
     # "coordinator_address should be defined" — that case IS the
     # documented single-process mode, so proceed with the local devices.

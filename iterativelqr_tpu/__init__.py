@@ -1,4 +1,4 @@
-"""iterativelqr-tpu: a TPU-native constrained iLQR / AL-iLQR engine.
+"""iterativelqr-tpu: a batched constrained iLQR / AL-iLQR engine.
 
 Brand-new JAX/XLA/Pallas implementation covering the capability set of
 thowell/IterativeLQR.jl (see SURVEY.md): user-defined dynamics/costs/

@@ -206,10 +206,9 @@ def make_solve_fn(
         """Derivative stacks + AL augmentation + backward pass.
 
         Kept as separate vmapped stacks: the fused single-pass variant
-        (dv.stage_derivatives) is faster in isolation (2.26 vs 2.81ms at
-        B=4096) but regresses the full solve ~30% (measured 5484 vs 7804
-        solves/s/chip) — same layout-interaction lesson as the v2 pallas
-        kernel (ops/pallas_backward.py docstring).
+        (dv.stage_derivatives) was faster in isolation but regressed the
+        full solve (layout interactions with the surrounding program); not
+        yet measured on the H100.
         """
         fx, fu = dv.dynamics_jacobians(spec, xs, us, ws)
         gx, gu = dv.cost_gradients(spec, xs, us, ws)
@@ -306,7 +305,7 @@ def make_solve_fn(
         if options.adaptive_penalty:
             # skip the ascent while stalled: lambda += rho*c with large rho
             # and large c manufactures huge multipliers whose linear term
-            # rewards constraint-crashing steps (measured TPU divergence)
+            # rewards constraint-crashing steps (measured f32 divergence)
             new_duals = jnp.where(stalled, duals, new_duals)
         # truncated rounds never ascend (see docstring)
         new_duals = jnp.where(truncated, duals, new_duals)
@@ -621,10 +620,10 @@ def make_solve_fn(
         return jax.lax.while_loop(cond, body, carry)
 
     def solve(xs_init, us_init, ws) -> Solution:
-        # TPU MXU matmuls default to bfloat16 multiply-accumulate, which
-        # destroys Riccati-recursion conditioning (observed: 62% solved /
-        # 2.7x iterations on TPU vs 100% on CPU at identical f32).  The
-        # matrices here are tiny (VPU-bound), so full-f32 precision is free.
+        # Accelerator matmuls may default to reduced precision (TF32 for f32
+        # on the GPU), which destroys Riccati-recursion conditioning
+        # (observed: most of a batch fails to converge).  The matrices here
+        # are tiny, so full-f32 precision costs nothing.
         with jax.default_matmul_precision("float32"):
             return _solve(xs_init, us_init, ws, None, None)
 

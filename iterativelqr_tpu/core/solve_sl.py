@@ -1,14 +1,12 @@
-"""SL-layout batched solver: the whole fused AL x iLQR loop tile-aligned.
+"""SL-layout batched solver: the whole fused AL x iLQR loop in one layout.
 
 The ``vmap(make_solve_fn(...))`` path produces batch-LEADING arrays whose
-tiny minormost state dims (nx=4, nu=1) waste up to 32x of every (8, 128) TPU
-tile; the measured cost on this solver was ~8ms/iteration of line search and
-~5ms of derive+backward at B=4096 against ~0.3ms of actual work.  This module
-runs the ENTIRE batched solve in "SL" layout — every array
-``[T, *dims, S, 128]`` with the batch riding the two trailing tile axes —
-so every elementwise op, reduction, rollout scan, and the packed backward
-kernel (ops/packed_backward.py) operate at full lane/sublane utilization.
-Layout conversion happens exactly once at entry and once at exit.
+tiny minormost state dims (nx=4, nu=1) put the batch on a strided axis.
+This module runs the ENTIRE batched solve in "SL" layout — every array
+``[T, *dims, S, 128]`` with the batch riding the two trailing axes — so every
+elementwise op, reduction, rollout scan and the backward recursion
+(ops/packed_backward.py) reads the batch contiguously.  Layout conversion
+happens exactly once at entry and once at exit.
 
 Per-instance semantics are identical to the fused loop in core/solve.py
 (same iterate sequence, stopping rules, dual-update points — reference
@@ -26,7 +24,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from ..ops.packed_backward import _round_up
+from ..ops.packed_backward import BATCH_GRAIN
 from ..ops.packed_pipeline import make_derive_backward_sl
 from ..ops.sl_ops import SLOps, from_sl, to_sl
 from .options import Options
@@ -66,7 +64,7 @@ class SLParts(NamedTuple):
 
 
 def make_sl_parts(
-    spec: ProblemSpec, options: Options = Options(), interpret: bool = False,
+    spec: ProblemSpec, options: Options = Options(),
     dual_warm_start: bool = False,
 ) -> SLParts:
     if options.record_traces:
@@ -78,14 +76,14 @@ def make_sl_parts(
         raise ValueError("SL batched solver implements the fused AL loop")
     if options.ddp:
         raise ValueError(
-            "SL batched solver does not support ddp=True (packed backward "
-            "kernel carries no second-derivative stacks); use the vmap path"
+            "SL batched solver does not support ddp=True (its backward "
+            "recursion carries no second-derivative stacks); use the vmap path"
         )
 
     o = options
     nc, T = spec.nc, spec.T
-    ops = SLOps(spec, o, interpret=interpret)
-    derive = make_derive_backward_sl(spec, o, interpret=interpret)
+    ops = SLOps(spec, o)
+    derive = make_derive_backward_sl(spec, o)
 
     def body(ws):
         def _body(s: _SLCarry) -> _SLCarry:
@@ -207,7 +205,7 @@ def make_sl_parts(
     def init(xs_b, us_b, ws_b, duals_b=None, pen_b=None):
         B = xs_b.shape[0]
         dtype = xs_b.dtype
-        Bp = _round_up(B, 1024)
+        Bp = -(-B // BATCH_GRAIN) * BATCH_GRAIN
         S = Bp // 128
 
         def pad(a):
@@ -290,7 +288,7 @@ def make_sl_parts(
 
 
 def make_batched_solve_sl(
-    spec: ProblemSpec, options: Options = Options(), interpret: bool = False,
+    spec: ProblemSpec, options: Options = Options(),
     dual_warm_start: bool = False,
 ):
     """Build ``(xs [B,T,nx], us [B,T-1,nu], ws [B,T,npar]) -> Solution``
@@ -299,7 +297,7 @@ def make_batched_solve_sl(
     ``(duals0 [B,T,nc], penalty0 [B,T,nc])`` — carried multipliers for
     re-solves (batched MPC farms)."""
     parts = make_sl_parts(
-        spec, options, interpret=interpret, dual_warm_start=dual_warm_start
+        spec, options, dual_warm_start=dual_warm_start
     )
 
     def solve_batch(xs_init, us_init, ws_b, *warm) -> Solution:

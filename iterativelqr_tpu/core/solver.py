@@ -37,7 +37,7 @@ class Solver:
     ):
         self.spec: ProblemSpec = build_spec(dynamics, objective, constraints)
         self.options = options
-        # default dtype follows x64 availability (TPU runs use float32)
+        # default dtype follows x64 availability (float32 without it)
         if dtype == jnp.float64 and not jax.config.jax_enable_x64:
             dtype = jnp.float32
         self.dtype = dtype

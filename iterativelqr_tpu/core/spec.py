@@ -2,7 +2,7 @@
 compiled, padded ``ProblemSpec`` the solver core consumes.
 
 API parity with the reference constructors (reference: src/dynamics.jl:16-34,
-src/costs.jl:17-44, src/constraints.jl:17-43), but TPU-native in design:
+src/costs.jl:17-44, src/constraints.jl:17-43), but JAX-native in design:
 
 * The reference symbolically traces user functions with Symbolics.jl and
   compiles 11 in-place derivative closures per problem.  Here user functions are
@@ -205,9 +205,8 @@ class Constraint:
 
     def _group_key(self):
         # every empty block is the same stage type (f is None -> id(None)
-        # shared), so per-t `Constraint()` lists collapse to ONE type — this
-        # is what keeps stage dispatch uniform for the rollout kernels
-        # (ops/sl_forward_kernel.kernel_eligible)
+        # shared), so per-t `Constraint()` lists collapse to ONE type and
+        # stage dispatch stays uniform
         return (
             Constraint, id(self.f), self.num_state, self.num_action,
             self.num_parameter, self.indices_inequality,

@@ -54,8 +54,8 @@ def _combine(ei, ej):
     # D = (I + C_i J_j)^{-1}; solve once, reuse transposed identity
     # (I + J_j C_i)^{-1} = D'-conjugate via transpose of the same LU
     # one unrolled Gaussian solve per operator (ops/linalg_small.py) — the
-    # batched LAPACK-style LU was 50x slower than the whole sequential scan on
-    # TPU.  M = I + C_i J_j is well conditioned (C, J PSD => Re(eig) >= 1).
+    # batched LAPACK-style LU was far slower than the whole sequential scan
+    # where measured.  M = I + C_i J_j is well conditioned (C, J PSD => Re(eig) >= 1).
     mm, mv = linalg_small.matmul, linalg_small.matvec
     M = I + mm(Ci, Jj)
     rhs = jnp.concatenate([Ai, (bi + mv(Ci, etaj))[:, None], Ci], axis=1)

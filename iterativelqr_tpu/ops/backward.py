@@ -1,6 +1,6 @@
 """Backward Riccati/DDP recursion.
 
-TPU-native replacements for the reference's sequential Julia loop with BLAS
+Batched replacements for the reference's sequential Julia loop with BLAS
 ``mul!`` and *unchecked* LAPACK Cholesky (reference: src/backward_pass.jl:42-90,
 SURVEY.md "hard parts" #1):
 
@@ -44,7 +44,7 @@ def riccati_step(P, p, fx_t, fu_t, gx_t, gu_t, gxx_t, guu_t, gux_t, um, reg,
     formulations, whose per-step elements must not depend on downstream V.
     """
     # all products via broadcast-multiply-reduce (linalg_small.matmul): a
-    # dot_general per 4x4 product costs a ~20us kernel on TPU; this form lets
+    # dot_general per 4x4 product is a kernel of its own; this form lets
     # XLA fuse the whole step body into a handful of kernels
     mm, mv = linalg_small.matmul, linalg_small.matvec
     fxT = jnp.swapaxes(fx_t, -1, -2)
@@ -94,8 +94,8 @@ def riccati_step(P, p, fx_t, fu_t, gx_t, gu_t, gxx_t, guu_t, gux_t, um, reg,
         Quu_reg = Quu_eff + reg * jnp.diag(um)
 
     # unrolled small-matrix Cholesky/solves (ops/linalg_small.py): the stock
-    # blocked factorizations dominate the whole backward pass on TPU at these
-    # tiny dimensions
+    # blocked factorizations dominate the whole backward pass at these tiny
+    # dimensions
     L = linalg_small.cholesky(Quu_reg)
     diag = jnp.diagonal(L)
     ok = jnp.all(jnp.isfinite(diag) & (diag > 0.0))
@@ -159,12 +159,12 @@ import functools
 
 
 def _assoc_wins(B: int, T: int) -> bool:
-    """Measured (B, T) regime rule for the backward pass on TPU v5e
-    (benchmarks/horizon_bench.py, docs/design.md section 3 table): the
-    O(log T) associative scan wins only when the batch underfills the chip —
-    B=1 at every T (0.67-0.75x of scan), B=64 once T reaches ~500 (0.83x);
-    at B>=512 the sequential scan's cheaper element composition wins
-    everywhere (up to 7.9x at B=4096, T=501)."""
+    """(B, T) regime rule for the backward pass: the O(log T) associative
+    scan wins only when the batch underfills the device — B=1 at every T,
+    small batches once T is long; device-filling batches take the
+    sequential scan's cheaper element composition.  The rule predates the
+    GPU port and is not yet measured on the H100
+    (benchmarks/horizon_bench.py re-derives it)."""
     return B <= max(1, T // 7)
 
 

@@ -108,14 +108,13 @@ def stage_derivatives(spec: ProblemSpec, xs, us, ws):
 
     Computing dynamics Jacobians, cost gradients, and cost Hessians as
     separate vmapped passes issues 3+ kernels that each re-read the
-    trajectory from HBM; evaluating one combined per-timestep function lets
-    XLA fuse them (measured at B=4096, T=101 on TPU v5e: 2.81 -> 2.26ms,
-    bitwise-identical results).  Stage types are grouped by the combined
+    trajectory from device memory; evaluating one combined per-timestep
+    function lets XLA fuse them (bitwise-identical results).  Stage types are grouped by the combined
     (dynamics, cost) type key; the terminal cost is evaluated separately.
 
-    NOTE: not used by the solver — despite the isolated win it regresses the
-    full solve ~30% (layout interactions with the surrounding program; see
-    core/solve.py::derive).  Kept as the starting point for a layout-aware
+    NOTE: not used by the solver — an isolated win on the first target
+    hardware, it regressed the full solve there (layout interactions with
+    the surrounding program; see core/solve.py::derive).  Kept as the starting point for a layout-aware
     derive + packed pallas backward (v2) pipeline.
 
     Returns (fx [T-1], fu [T-1], gx [T], gu [T-1], gxx [T], guu [T-1],

@@ -1,9 +1,9 @@
 """Forward pass: Armijo line search over vmapped candidate step sizes.
 
 The reference backtracks serially, halving alpha and re-rolling out until the
-Armijo condition holds (reference: src/forward_pass.jl:26-54).  On TPU the
+Armijo condition holds (reference: src/forward_pass.jl:26-54).  Here the
 whole candidate grid alpha_j = 0.5**j is rolled out *at once* (one extra vmap
-axis riding the VPU lanes) and the largest acceptable alpha is selected —
+axis) and the largest acceptable alpha is selected —
 semantically identical to first-accept backtracking, but one device round
 instead of a data-dependent loop (SURVEY.md section 7).
 
@@ -102,9 +102,9 @@ def line_search(
     # score every candidate with a trajectory-free (carry-only) rollout, then
     # re-roll only the winner below.  (A two-block head/tail split with the
     # tail under lax.cond — the SL solver's structure, ops/sl_ops.py — was
-    # measured to REGRESS this path: single-instance TPU solve latency rose
-    # 22% on acrobot T=51 and 5x on car T=51, the cond splitting the scoring
-    # into separately-scheduled scans; the one-shot grid stays.)
+    # measured to REGRESS this path's single-instance solve latency, the cond
+    # splitting the scoring into separately-scheduled scans; the one-shot
+    # grid stays.  Not yet re-measured on the H100.)
     viol_filter = options.constraint_aware_acceptance and spec.nc > 0
 
     def score_alpha(alpha):

@@ -1,14 +1,12 @@
 """Unrolled small-matrix linear algebra for the Riccati hot loop.
 
 ``jax.numpy.linalg.cholesky`` / ``cho_solve`` / ``solve`` lower to blocked
-algorithms (custom calls / internal while-loops) that are catastrophically
-slow on TPU for the tiny per-timestep matrices of trajectory optimization
-(measured: the batched backward pass spends ~80% of its time in them; the
-associative path's batched 4x4 LU ``solve`` ran 50x slower than the whole
-sequential scan).  State/action dimensions here are single digits, so every
-factorization unrolls into a static sequence of elementwise multiply-adds that
-vectorize perfectly over the batch on the VPU — no pivoting, no loops, no
-custom calls.
+algorithms (library calls / internal while-loops) built for large matrices,
+not for the tiny per-timestep matrices of trajectory optimization, where
+they dominated the batched backward pass.  State/action dimensions here are
+single digits, so every factorization unrolls into a static sequence of
+elementwise multiply-adds that vectorize over the batch — no pivoting, no
+loops, no library calls.
 
 All functions take ``[..., m, m]`` / ``[..., m, k]`` arrays and unroll over
 the *static* trailing dims; above ``_UNROLL_MAX`` they fall back to the
@@ -26,9 +24,8 @@ _UNROLL_MAX = 12
 def matmul(a, b):
     """Small-matrix product as broadcast-multiply-reduce.
 
-    ``dot_general`` on [..., m, m] tiles lowers to one kernel per product on
-    TPU (~20us fixed cost each — the Riccati step body had ~10 of them,
-    dominating the backward pass).  A broadcasted multiply + sum is plain
+    ``dot_general`` on [..., m, m] tiles lowers to one kernel per product
+    (the Riccati step body has ~10 of them).  A broadcasted multiply + sum is plain
     elementwise/reduce work that XLA fuses across the whole step body.  Only
     for small static dims; the [..., m, k, n] intermediate fuses away.
     """

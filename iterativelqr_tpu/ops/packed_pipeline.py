@@ -1,25 +1,19 @@
-"""Layout-aware fused derive -> packed backward pipeline (VERDICT r1 next #1).
+"""SL-layout derive -> backward -> Armijo-slope pipeline.
 
-Round-1 measured two isolated wins that were end-to-end losses: the fused
-single-pass derivative stack (2.81 -> 2.26 ms at B=4096) and the packed-HBM
-pallas backward kernel — each forced layout transposes of the ~76MB
-derivative stacks at its boundary with the rest of the (batch-leading,
-vmap-generated) program.  This module removes the boundary: under ``vmap``
-the whole derive -> AL-augment -> backward -> Armijo-slope chain runs in
-BATCH-TRAILING layout, so the derivative stacks are *born* in the packed
-``[T, slot, sublane, lane]`` form the chunked pallas kernel
-(ops/packed_backward.py) consumes, and only the small outputs (gains K/k,
-per-instance scalars) are transposed back to batch-leading.
+The batched solver's derivative, AL-augmentation, backward and slope chain
+runs in the SL layout ``[T, *dims, S, 128]`` (batch on the two trailing
+axes), so the derivative stacks are born in the layout the backward
+recursion (ops/packed_backward.py) reads, and no stack is ever re-laid-out.
+Only the small outputs (gains K/k, per-instance scalars) leave that layout.
 
-Selected with ``Options(backward_pass="packed")``.  The unbatched call (and
-any non-TPU backend) falls back to the existing per-instance scan path, so
-semantics are identical everywhere; tests exercise the batched rule in
-pallas interpreter mode on CPU.
+``make_derive_backward_sl`` serves the SL batched solver (core/solve_sl.py).
+``make_derive_backward`` is the ``Options(backward_pass="packed")`` entry of
+the per-instance solve: unbatched calls take the per-instance scan path,
+and under ``vmap`` the batched rule runs this pipeline wherever the
+recursion is the Pallas-Triton kernel (``packed_backward.riccati_impl``).
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +25,7 @@ from . import packed_backward as pk
 
 def _bt2_tmap(fn):
     """vmap a per-(x,u,w) function over [t, :, S, 128] SL-layout arrays
-    (t on axis 0, batch split over the two trailing tile axes)."""
+    (t on axis 0, batch split over the two trailing axes)."""
     return jax.vmap(
         jax.vmap(
             jax.vmap(fn, in_axes=-1, out_axes=-1), in_axes=-1, out_axes=-1
@@ -129,17 +123,17 @@ def _build(spec: ProblemSpec, options, interpret: bool = False):
 
     gT = int(spec.cost_tidx[-1])
     cT = int(spec.con_tidx[-1])
+    impl = pk.riccati_impl(nx, nu, jax.default_backend(), interpret)
 
     def batched_sl(xs_t, us_t, ws_t, lam, rho, c_t, reg_sl, valid=None):
-        """SL-native core: all arguments tile-aligned [T, *dims, S, 128]
-        (batch split into sublane x lane), ``reg_sl`` [S, 128].
+        """SL-native core: all arguments in SL layout [T, *dims, S, 128]
+        (batch split over the two trailing axes), ``reg_sl`` [S, 128].
 
-        The derivative stacks are BORN in the layout the multiref kernel
-        consumes, so no stack is ever re-tiled (pack_stacks_bt's concat
-        re-tiling cost ~4ms at B=4096 — 50x the kernel itself).  ``valid``
-        (bool [S, 128] or None) marks real batch lanes: padding lanes are
-        excluded from the regularization-retry convergence test so garbage
-        pads can never force extra kernel sweeps.
+        The derivative stacks are born in the layout the backward recursion
+        reads, so no stack is ever re-laid-out.  ``valid`` (bool [S, 128]
+        or None) marks real batch lanes: padding lanes are excluded from the
+        regularization-retry convergence test so garbage pads can never
+        force extra recursion sweeps.
 
         Returns SL outputs (K [Tm1,nu,nx,S,L], k [Tm1,nu,S,L],
         slope [S,L], grad_norm [S,L], reg_next [S,L]).
@@ -174,7 +168,7 @@ def _build(spec: ProblemSpec, options, interpret: bool = False):
             irho = rho * a
             ctmp = lam + irho * c_t
             # broadcast-multiply-reduce, NOT einsum: a dot_general with a
-            # 4-wide contraction and (t, sublane, lane) batch dims relayouts
+            # 4-wide contraction and (t, S, lane) batch dims relayouts
             # everything and dominates the pipeline (round-1 lesson,
             # ops/linalg_small.py); the reduce-of-product form fuses.
             cxr = cx * irho[:, :, None]                      # [t,c,i,a,b]
@@ -191,21 +185,17 @@ def _build(spec: ProblemSpec, options, interpret: bool = False):
                 cur[:, :, :, None] * cx[:-1, :, None, :], axis=1
             )
 
-        kernel_stacks = pk.pad_stacks_sl(
-            fx, fu, gx, gu, gxx, guu, gux, jnp.asarray(u_mask_np)
-        )
-        stacks_p, gxxT_l, gxT_l, meta = (
-            kernel_stacks[:7], kernel_stacks[7], kernel_stacks[8],
-            kernel_stacks[9],
-        )
+        stacks_bw = (fx, fu, gx[:-1], gu, gxx[:-1], guu, gux)
+        u_mask = jnp.asarray(u_mask_np)
 
-        # adaptive-regularization retry around the kernel (same policy as
+        # adaptive-regularization retry around the recursion (same policy as
         # ops/backward.py::backward_pass, batched explicitly)
         reg_sl = reg_sl.astype(dtype)
 
         def run(reg_run):
-            return pk.backward_pass_multiref(
-                stacks_p, gxxT_l, gxT_l, reg_run, meta, interpret=interpret
+            return pk.backward_pass_sl(
+                stacks_bw, gxx[-1], gx[-1], reg_run, u_mask, impl=impl,
+                unroll=options.scan_unroll,
             )
 
         def cond(s):
@@ -281,7 +271,7 @@ def _build(spec: ProblemSpec, options, interpret: bool = False):
         the 76MB derivative stacks never move (they are born SL inside
         ``batched_sl``)."""
         B = xs.shape[0]
-        Bp = pk._round_up(B, 1024)
+        Bp = -(-B // pk.BATCH_GRAIN) * pk.BATCH_GRAIN
         S = Bp // 128
 
         def to_sl(a):
@@ -314,7 +304,7 @@ def _build(spec: ProblemSpec, options, interpret: bool = False):
     return single, batched_sl, batched
 
 
-def make_derive_backward_sl(spec: ProblemSpec, options, interpret: bool = False):
+def make_derive_backward_sl(spec: ProblemSpec, options):
     """SL-native derive+backward+slope for the SL batched solver
     (core/solve_sl.py).  Signature:
         (xs [T,nx,S,L], us [T-1,nu,S,L], ws [T,npar,S,L], duals [T,nc,S,L],
@@ -322,7 +312,7 @@ def make_derive_backward_sl(spec: ProblemSpec, options, interpret: bool = False)
           -> (K [T-1,nu,nx,S,L], k [T-1,nu,S,L], slope [S,L],
               grad_norm [S,L], reg_next [S,L])
     """
-    _, batched_sl, _ = _build(spec, options, interpret)
+    _, batched_sl, _ = _build(spec, options)
     return batched_sl
 
 
@@ -335,12 +325,13 @@ def make_derive_backward(spec: ProblemSpec, options, interpret: bool = False):
           -> (K [T-1,nu,nx], k [T-1,nu], slope scalar, grad_norm scalar,
               reg_next scalar)
 
-    Unbatched calls use the existing scan path; under vmap the batched rule
-    runs the batch-trailing pipeline + chunked pallas kernel (TPU; interpret
-    mode in tests).  Falls back to vmapping the per-instance path on other
-    backends.
+    Unbatched calls use the existing scan path.  Under vmap the batched rule
+    runs the SL pipeline with the kernel where ``packed_backward.riccati_impl``
+    picks it (``interpret`` runs the kernel in interpret mode), and vmaps the
+    per-instance path where it picks the XLA scan.
     """
     single, _, batched = _build(spec, options, interpret)
+    impl = pk.riccati_impl(spec.nx, spec.nu, jax.default_backend(), interpret)
 
     @jax.custom_batching.custom_vmap
     def dispatch(xs, us, ws, duals, penalty, c, reg):
@@ -357,11 +348,10 @@ def make_derive_backward(spec: ProblemSpec, options, interpret: bool = False):
         pen_b = bc(penalty, in_batched[4], (B,) + penalty.shape[-2:])
         c_b = bc(c, in_batched[5], (B,) + c.shape[-2:])
         reg_b = reg if in_batched[6] else jnp.broadcast_to(reg, (B,))
-        use_kernel = interpret or jax.default_backend() == "tpu"
-        if use_kernel:
-            out = batched(xs, us, ws_b, duals_b, pen_b, c_b, reg_b)
-        else:
+        if impl == "xla":
             out = jax.vmap(single)(xs, us, ws_b, duals_b, pen_b, c_b, reg_b)
+        else:
+            out = batched(xs, us, ws_b, duals_b, pen_b, c_b, reg_b)
         return out, tuple(True for _ in out)
 
     return dispatch

@@ -1,12 +1,10 @@
 """SL-layout batch ops: line search, AL machinery, objective evaluation.
 
 The building blocks of the SL batched solver (core/solve_sl.py).  Every array
-carries the batch split over the two TRAILING tile axes — shape
-``[T, *dims, S, 128]`` with ``B = S * 128`` — so each elementwise op runs at
-full VPU lane/sublane utilization.  The batch-leading layout the plain
-``vmap`` path produces puts tiny state dims (nx=4, nu=1) minormost, wasting
-up to 32x of every (8, 128) tile; the measured gap on the backward pass was
-40x (ops/packed_backward.py) and the line search has the same structure.
+carries the batch split over the two TRAILING axes — shape
+``[T, *dims, S, 128]`` with ``B = S * 128`` — so each elementwise op reads
+the batch contiguously, where the batch-leading layout of the plain ``vmap``
+path puts the tiny state dims (nx=4, nu=1) minormost.
 
 Semantics per instance are identical to the batch-leading ops
 (ops/forward.py, ops/rollout.py, ops/al.py); reference citations live there.
@@ -19,7 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core.spec import ProblemSpec
-from .packed_pipeline import _bt2_tmap, _grouped_bt2
+from .packed_pipeline import _grouped_bt2
 
 
 def map2(fn):
@@ -57,63 +55,17 @@ class SLOps:
     """Per-spec SL-layout operations, built once and closed over by the
     solver loop."""
 
-    def __init__(self, spec: ProblemSpec, options, interpret: bool = False):
+    def __init__(self, spec: ProblemSpec, options):
         self.spec = spec
         self.options = options
         T, nc = spec.T, spec.nc
         Tm1 = T - 1
 
-        # line-search rollout kernels (ops/sl_forward_kernel.py): one pallas
-        # launch per scoring block / winner re-roll instead of a T-step XLA
-        # scan (latency-bound on loop-step issue — options.py forward_kernel)
-        from . import sl_forward_kernel as fk
-
-        fkmode = getattr(options, "forward_kernel", "scan")
-        want = fkmode == "pallas" or (
-            fkmode == "auto"
-            and not interpret
-            and jax.default_backend() == "tpu"
-        )
         # constraint-aware acceptance scores candidates by their max
-        # violation accumulated in the scoring scan's carry; the pallas
-        # rollout kernels don't emit it, so the filter pins the scan path
+        # violation accumulated in the scoring scan's carry
         self._viol_filter = (
             options.constraint_aware_acceptance and spec.nc > 0
         )
-        self._fk_score = self._fk_reroll = None
-        if want and options.line_search == "armijo":
-            eligible = (
-                fk.kernel_eligible(spec)
-                and fk.reroll_fits(spec, options)
-                and not self._viol_filter
-            )
-            if not eligible and fkmode == "pallas":
-                raise ValueError(
-                    'forward_kernel="pallas" requires stage-uniform '
-                    "dynamics/cost/constraint dispatch, VMEM-fitting "
-                    "re-roll outputs (ops/sl_forward_kernel.kernel_eligible) "
-                    "and constraint_aware_acceptance=False (the kernels do "
-                    "not score per-candidate violations)"
-                )
-            if eligible:
-                import numpy as _np
-
-                na = options.num_step_sizes
-                alphas_np = 0.5 ** _np.arange(na)
-                n1 = min(8, na)
-                self._fk_score = fk.make_score_rollout(
-                    spec, options, alphas_np[:n1], interpret=interpret
-                )
-                self._fk_score_tail = (
-                    fk.make_score_rollout(
-                        spec, options, alphas_np[n1:], interpret=interpret
-                    )
-                    if na > n1
-                    else None
-                )
-                self._fk_reroll = fk.make_winner_reroll(
-                    spec, options, interpret=interpret
-                )
         self.ineq_t = jnp.asarray(spec.ineq_mask)          # [T, nc] bool
         self.cmask_t = jnp.asarray(spec.c_mask)            # [T, nc] bool
         self.ineq_sl = self.ineq_t[:, :, None, None]
@@ -355,29 +307,6 @@ class SLOps:
         alphas = 0.5 ** jnp.arange(na, dtype=dtype)
         c1 = jnp.asarray(o.armijo_c1, dtype)
 
-        if self._fk_score is not None:
-            # pallas rollout kernels: one launch per scoring block and one
-            # for the winner re-roll (ops/sl_forward_kernel.py) — identical
-            # per-step math to the scans below, pinned by
-            # tests/test_sl_forward_kernel.py
-            score_head_fn = lambda: self._fk_score(
-                xbar, ubar, ws, K, k, duals, penalty
-            )
-            score_tail_fn = (
-                (lambda: self._fk_score_tail(
-                    xbar, ubar, ws, K, k, duals, penalty
-                ))
-                if self._fk_score_tail is not None
-                else None
-            )
-            roll_winner = lambda a: self._fk_reroll(
-                a, xbar, ubar, ws, K, k, duals, penalty
-            )
-        else:
-            score_head_fn = lambda: score_block(alphas[:n1])
-            score_tail_fn = (lambda: score_block(alphas[n1:]))
-            roll_winner = lambda a: roll(a, emit=True)
-
         viol_filter = self._viol_filter
 
         def score_block(alphas_blk):
@@ -473,7 +402,7 @@ class SLOps:
                 jnp.asarray(o.constraint_tolerance, dtype),
             )                                               # [S,L]
         V_head = V_c = None
-        head = score_head_fn()
+        head = score_block(alphas[:n1])
         J_head = head[0] if viol_filter else head
         if viol_filter:
             V_head = head[1]
@@ -499,14 +428,14 @@ class SLOps:
                     jnp.all(settled),
                     lambda: (jnp.full(blk_shape, jnp.inf, dtype),
                              jnp.full(blk_shape, jnp.inf, dtype)),
-                    score_tail_fn,
+                    lambda: score_block(alphas[n1:]),
                 )
                 V_c = jnp.concatenate([V_head, V_tail], axis=0)
             else:
                 J_tail = jax.lax.cond(
                     jnp.all(settled),
                     lambda: jnp.full(blk_shape, jnp.inf, dtype),
-                    score_tail_fn,
+                    lambda: score_block(alphas[n1:]),
                 )
             J_c = jnp.concatenate([J_head, J_tail], axis=0)
         else:
@@ -525,7 +454,7 @@ class SLOps:
         alpha_win = alphas[idx]
         J_win = jnp.take_along_axis(J_c, idx[None], axis=0)[0]
 
-        xs_w, us_w, _J_reroll, c_w = roll_winner(alpha_win)
+        xs_w, us_w, _J_reroll, c_w = roll(alpha_win, emit=True)
         xs = jnp.where(status, xs_w, xbar)
         us = jnp.where(status, us_w, ubar)
         J = jnp.where(status, J_win, J_prev)

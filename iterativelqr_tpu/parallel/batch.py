@@ -2,9 +2,9 @@
 
 The "data parallel" axis of this framework (SURVEY.md section 2.2): the
 reference solves one problem per process with no parallelism of any kind; here
-the full constrained solve is ``jax.vmap``-ed over initial trajectories and
-parameter vectors, so thousands of instances (different initial conditions,
-goals, obstacle layouts, model parameters) ride the VPU/MXU together.
+the full constrained solve is batched over initial trajectories and parameter
+vectors, so thousands of instances (different initial conditions, goals,
+obstacle layouts, model parameters) ride the accelerator together.
 
 Per-instance convergence is automatic: ``lax.while_loop`` under ``vmap``
 lowers to a masked loop, so converged instances stop changing while the rest
@@ -23,12 +23,16 @@ from ..core.solve import Solution, make_solve_fn
 from ..core.spec import ProblemSpec
 
 
+# Platforms on which batched_solver="auto" picks the SL solver when the
+# options allow it (measured end to end on an H100: PERF.md).
+SL_PLATFORMS = ("gpu",)
+
+
 def _sl_eligible(options: Options, callback) -> bool:
     """Options the SL-layout batched solver (core/solve_sl.py) supports.
 
-    ``backward_pass="auto"`` (the default) qualifies: on TPU the SL stack is
-    the measured-best batched configuration (README perf table), so a plain
-    ``Options()`` reaches it without hand-set knobs."""
+    ``backward_pass="auto"`` (the default) qualifies, so a plain
+    ``Options(record_traces=False)`` reaches it without hand-set knobs."""
     return (
         options.backward_pass in ("packed", "auto")
         and options.fused_al_loop
@@ -40,12 +44,22 @@ def _sl_eligible(options: Options, callback) -> bool:
     )
 
 
+def use_sl_solver(options: Options, callback=None, platform=None) -> bool:
+    """Whether batched solves run the SL solver: ``batched_solver="sl"``
+    always, ``"vmap"`` never, ``"auto"`` on ``SL_PLATFORMS`` when the
+    options are eligible.  ``platform`` defaults to JAX's default backend."""
+    if options.batched_solver != "auto":
+        return options.batched_solver == "sl"
+    if platform is None:
+        platform = jax.default_backend()
+    return platform in SL_PLATFORMS and _sl_eligible(options, callback)
+
+
 def make_batched_solve_fn(
     spec: ProblemSpec,
     options: Options = Options(),
     callback: Optional[Callable] = None,
     in_axes=(0, 0, 0),
-    interpret: bool = False,
     dual_warm_start: bool = False,
 ):
     """Build ``(xs_init [B,T,nx], us_init [B,T-1,nu], ws [B,T,npar]) -> Solution``
@@ -60,24 +74,17 @@ def make_batched_solve_fn(
     for warm re-solves (batched MPC farms), mirroring
     ``make_solve_fn(dual_warm_start=True)``.
 
-    Implementation is selected by ``options.batched_solver``: the SL-layout
-    solver (core/solve_sl.py — the whole loop tile-aligned ``[T,*dims,S,128]``)
-    when eligible on TPU, else ``jax.vmap`` of the per-instance solve.
-    ``interpret`` runs the SL solver's pallas kernel in interpreter mode
-    (CPU tests only).
+    Implementation is selected by ``use_sl_solver``: the SL-layout solver
+    (core/solve_sl.py — the whole loop in ``[T,*dims,S,128]``) or
+    ``jax.vmap`` of the per-instance solve.
     """
-    use_sl = options.batched_solver == "sl" or (
-        options.batched_solver == "auto"
-        and _sl_eligible(options, callback)
-        and (interpret or jax.default_backend() == "tpu")
-    )
+    use_sl = use_sl_solver(options, callback)
     eff_in_axes = tuple(in_axes) + ((0, 0) if dual_warm_start else ())
     if use_sl:
         from ..core.solve_sl import make_batched_solve_sl
 
         solve_sl = make_batched_solve_sl(
-            spec, options, interpret=interpret,
-            dual_warm_start=dual_warm_start,
+            spec, options, dual_warm_start=dual_warm_start,
         )
 
         def solve_batch(*args) -> Solution:
@@ -104,9 +111,9 @@ def make_batched_solve_fn(
 class BatchStats(NamedTuple):
     """Aggregate convergence statistics of a batched Solution.
 
-    The TPU-native replacement for the reference's scalar convergence locals
+    The batched replacement for the reference's scalar convergence locals
     (reference: src/data/constraints.jl:28-38, src/solve.jl:40-45): under a
-    sharded mesh the reductions here lower to XLA collectives (psum over ICI).
+    sharded mesh the reductions here lower to XLA collectives (psum).
     """
 
     solved_fraction: jax.Array

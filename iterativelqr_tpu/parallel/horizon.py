@@ -5,7 +5,7 @@ associative-scan Riccati (ops/assoc.py) covers long horizons; for horizons
 whose derivative stacks outgrow one device's HBM — or when a single long
 instance should use many chips — the TIME axis itself is sharded over a mesh
 axis.  (Reference analog: none — src/backward_pass.jl:42-90 is a strict
-sequential loop on one core; this is the TPU-native extension of its
+sequential loop on one core; this is the multi-device extension of its
 recursion.)
 
 Design (the standard distributed-prefix decomposition):
@@ -14,7 +14,7 @@ Design (the standard distributed-prefix decomposition):
     (embarrassingly parallel) and runs the LOCAL reverse associative scan —
     ``res[t] = e_t (x) ... (x) e_last_local``.
 2.  One tiny ``all_gather`` exchanges the n per-chunk composites (a few
-    nx*nx matrices each; bytes, not megabytes, on ICI).
+    nx*nx matrices each; bytes, not megabytes, on the interconnect).
 3.  Every device unrolls the n-element suffix composition of the LATER
     chunks and extends each local result — ``final[t] = res[t] (x) S_d``.
     The boundary value function a chunk needs for its last gain expansion is
@@ -162,9 +162,7 @@ def make_long_horizon_solve_fn(
 ):
     """Full single-instance constrained solve with the backward pass's TIME
     axis sharded over ``mesh[axis_name]`` — the public entry for horizons
-    whose derivative stacks outgrow one device's HBM (round-4 verdict item
-    5; SURVEY.md section 5 long-context row; reference analog: none —
-    src/backward_pass.jl:42 is a strict serial loop on one core).
+    whose derivative stacks outgrow one device's HBM.
 
     Returns the same callable as ``core.solve.make_solve_fn`` (identical
     signature, Solution, and per-instance semantics — the sharded recursion
@@ -177,7 +175,7 @@ def make_long_horizon_solve_fn(
     partitioner.
 
     Notes: ``backward_pass`` must not be "packed" (that selector is the
-    batched tile-packed pipeline; "auto"/"scan"/"associative" all route the
+    batched SL pipeline; "auto"/"scan"/"associative" all route the
     override).  For best effect jit the result with the mesh's devices
     visible; batching via ``jax.vmap`` composes (the shard_map is over time,
     not batch).

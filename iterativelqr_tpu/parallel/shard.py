@@ -1,17 +1,16 @@
-"""SPMD sharding of batched solves over a TPU device mesh.
+"""SPMD sharding of batched solves over a device mesh.
 
-The pod-scale axis (SURVEY.md section 2.2, BASELINE.json configs[4]): the
-batch of problem instances is sharded across chips with
-``jax.sharding.NamedSharding``; XLA inserts the collectives (psum over ICI for
-the aggregate statistics, nothing else — per-instance solves are embarrassingly
+The multi-device axis (SURVEY.md section 2.2, BASELINE.json configs[4]): the
+batch of problem instances is sharded across devices with
+``jax.sharding.NamedSharding``; XLA inserts the collectives (a psum for the
+aggregate statistics, nothing else — per-instance solves are embarrassingly
 parallel, so the program is communication-free except for the final stats
-reduction).  This *is* the TPU-native "distributed backend": no NCCL/MPI
-analog exists or is needed (SURVEY.md section 5, last row).
+reduction).
 
 Design notes:
 * Inputs are batch-sharded, the solve is vmapped, outputs inherit the batch
   sharding; ``batch_stats`` reduces across the mesh.
-* Works identically on 1 real chip, N real chips, or N virtual CPU devices
+* Works identically on 1 device, N devices, or N virtual CPU devices
   (``--xla_force_host_platform_device_count``), which is how the test suite
   exercises it (SURVEY.md section 4).
 """
@@ -26,15 +25,15 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core.options import Options
 from ..core.spec import ProblemSpec
-from .batch import batch_stats, make_batched_solve_fn
+from .batch import batch_stats, make_batched_solve_fn, use_sl_solver
 
 
 def default_mesh(
     devices: Optional[Sequence] = None, axis_name: str = "batch"
 ) -> Mesh:
     """A 1-D mesh over all (or the given) devices; the batch axis is the only
-    sharded axis — problems are independent, so a 1-D mesh maximizes ICI-free
-    parallelism."""
+    sharded axis — problems are independent, so a 1-D mesh needs no
+    communication inside the solve."""
     devices = jax.devices() if devices is None else list(devices)
     return Mesh(np.asarray(devices), (axis_name,))
 
@@ -46,7 +45,6 @@ def make_sharded_solve_fn(
     callback: Optional[Callable] = None,
     axis_name: str = "batch",
     with_stats: bool = True,
-    interpret: bool = False,
 ):
     """Build a jit-compiled, mesh-sharded batched solve.
 
@@ -57,14 +55,8 @@ def make_sharded_solve_fn(
     collectives.
     """
     mesh = default_mesh(axis_name=axis_name) if mesh is None else mesh
-    batched = make_batched_solve_fn(spec, options, callback, interpret=interpret)
-    from .batch import _sl_eligible
-
-    if options.batched_solver == "sl" or (
-        options.batched_solver == "auto"
-        and _sl_eligible(options, callback)
-        and (interpret or jax.default_backend() == "tpu")
-    ):
+    batched = make_batched_solve_fn(spec, options, callback)
+    if use_sl_solver(options, callback):
         # The SL solver retiles the batch to [.., S, 128]; under the SPMD
         # partitioner that reshape would reshard (all-gather) the batch.
         # shard_map instead runs the SL solve independently on each device's
@@ -77,7 +69,8 @@ def make_sharded_solve_fn(
             mesh=mesh,
             in_specs=(P(axis_name), P(axis_name), P(axis_name)),
             out_specs=P(axis_name),
-            # pallas_call's out ShapeDtypeStructs carry no vma annotation
+            # pallas_call's out ShapeDtypeStructs carry no varying-axes
+            # annotation
             check_vma=False,
         )
     batch_sharding = NamedSharding(mesh, P(axis_name))
@@ -113,12 +106,12 @@ def shard_batch(mesh: Mesh, axis_name: str, *arrays):
 def distributed_initialize(**kwargs):
     """Multi-host entry: wraps ``jax.distributed.initialize``.
 
-    On a pod slice each host calls this once before building meshes; the mesh
+    On a multi-host cluster each host calls this once before building meshes; the mesh
     from ``default_mesh()`` then spans all hosts' devices and global batches
     are assembled with ``jax.make_array_from_process_local_data``.  No-op only
     when already initialized; genuine init failures (bad coordinator address,
     port conflicts) re-raise — silently degrading to a single-host mesh on a
-    pod surfaces later as hangs.
+    cluster surfaces later as hangs.
     """
     try:
         jax.distributed.initialize(**kwargs)

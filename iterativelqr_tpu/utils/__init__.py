@@ -1,6 +1,5 @@
-"""Utilities: printing, profiling, checkpointing, program cache."""
+"""Utilities: printing, profiling, checkpointing, compile cache."""
 
 from . import checkpoint, printing, profiling
-from .program_cache import cached_program
 
-__all__ = ["checkpoint", "printing", "profiling", "cached_program"]
+__all__ = ["checkpoint", "printing", "profiling"]

@@ -1,7 +1,7 @@
 """Profiling helpers (SURVEY.md section 5 "tracing/profiling" row).
 
 The reference has no profiling subsystem beyond a manual BenchmarkTools
-scratchpad (reference: test/benchmark.jl).  TPU-native equivalents:
+scratchpad (reference: test/benchmark.jl).  Equivalents here:
 
 * ``trace(logdir)`` — context manager around ``jax.profiler`` producing
   TensorBoard/Perfetto traces of device execution.
@@ -21,7 +21,7 @@ import jax
 
 
 @contextlib.contextmanager
-def trace(logdir: str = "/tmp/ilqr_tpu_profile") -> Iterator[None]:
+def trace(logdir: str) -> Iterator[None]:
     """Capture a device profile: view with TensorBoard or ui.perfetto.dev."""
     jax.profiler.start_trace(logdir)
     try:

@@ -3,7 +3,7 @@
 Freezes the converged particle/car/acrobot trajectories at the point where
 the engine and the independent NumPy oracle (benchmarks/numpy_reference.py)
 agree, so a refactor that drifts BOTH implementations together still fails
-tests/test_golden.py (VERDICT r1 missing #3).  Mirrors the acceptance intent
+tests/test_golden.py.  Mirrors the acceptance intent
 of the reference's solution assertions (reference: test/acrobot.jl:114,
 test/car.jl:74-79).
 
@@ -39,11 +39,11 @@ CASES = {
             np.tile([1.0e-2, 1.0e-3], (50, 1)), (2e-2, 5e-2)),
     "acrobot": (acrobot.problem(51), npr.acrobot_problem(51),
                 0.05 * np.ones((50, 1)), (5e-2, 2e-1)),
-    # the BASELINE.json headline config (round-4 verdict item 4): a refactor
+    # the BASELINE.json headline config: a refactor
     # that shifts the benchmarked T=101 solution must fail CI
     "acrobot_T101": (acrobot.problem(101), npr.acrobot_problem(101),
                      0.05 * np.ones((100, 1)), (5e-2, 2e-1)),
-    # the extra model families (protocol problems in MEASURED_TPU.md).
+    # the extra model families (protocol problems of benchmarks/measure_all.py).
     # cartpole's u gate is loose: the control rides the +/-10 saturation
     # limit and the bang-bang switch lands one step apart between engine
     # and oracle (one element, ~0.66) — the state gate (1e-1) pins the

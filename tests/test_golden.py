@@ -1,4 +1,4 @@
-"""Golden-trajectory regression tests (VERDICT r1 missing #3).
+"""Golden-trajectory regression tests.
 
 The parity suite (tests/test_reference_parity.py) proves engine == oracle; if
 a refactor drifted both together nothing would catch it.  These tests compare
@@ -28,7 +28,7 @@ CASES = {
     "car": (lambda: car.problem(51), (1e-3, 5e-3)),
     "acrobot": (lambda: acrobot.problem(51), (1e-2, 5e-2)),
     # the BASELINE.json headline config: a refactor that shifts the
-    # benchmarked T=101 solution fails here (round-4 verdict item 4)
+    # benchmarked T=101 solution fails here
     "acrobot_T101": (lambda: acrobot.problem(101), (1e-2, 5e-2)),
     "cartpole": (lambda: cartpole.problem(101), (1e-2, 5e-2)),
     "quadrotor": (lambda: quadrotor.problem(41), (1e-2, 5e-2)),

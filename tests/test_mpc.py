@@ -124,12 +124,12 @@ def test_mpc_capped_step_stays_stable():
 
 
 def test_mpc_budget_transient_envelope():
-    """VERDICT r2 #6: the budgeted controller's transient envelope, not just
+    """The budgeted controller's transient envelope, not just
     its final step.  Acrobot (the benchmark plant) at a recorded budget of 8
     iterations/step: worst violation across the whole trajectory stays
     within 5e-2 and every infeasible excursion recovers within 3 steps
-    (steps-to-refeasibility).  The TPU-side latency companion row lives in
-    README's MPC table (benchmarks/mpc_bench.py --budgets)."""
+    (steps-to-refeasibility).  The latency companion is
+    benchmarks/mpc_bench.py --budgets."""
     from iterativelqr_tpu.models import acrobot
     from iterativelqr_tpu.ops.rollout import open_loop_rollout
 

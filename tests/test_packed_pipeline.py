@@ -1,10 +1,10 @@
 """Packed derive -> backward pipeline vs the per-instance scan path.
 
-The batched custom-vmap rule (batch-trailing derive + chunked pallas kernel)
-runs in pallas interpreter mode on CPU; its outputs must match vmapping the
-per-instance path.  Also pins the v3 kernel against the scan backward and the
-end-to-end solve with backward_pass="packed" (which falls back to the scan
-path off-TPU — semantics must be unchanged).
+The batched custom-vmap rule (SL-layout derive + the Pallas-Triton kernel)
+runs the kernel in interpret mode on CPU; its outputs must match vmapping
+the per-instance path.  Also pins the end-to-end solve with
+backward_pass="packed" (unbatched, it takes the per-instance scan path —
+semantics must be unchanged).
 """
 
 import jax
@@ -16,8 +16,6 @@ from iterativelqr_tpu import Options
 from iterativelqr_tpu.core.solve import make_solve_fn
 from iterativelqr_tpu.core.spec import build_spec
 from iterativelqr_tpu.models import acrobot, car
-from iterativelqr_tpu.ops.backward import backward_pass_scan
-from iterativelqr_tpu.ops.packed_backward import backward_pass_batched_pallas_v3
 from iterativelqr_tpu.ops.packed_pipeline import make_derive_backward
 from iterativelqr_tpu.ops.rollout import open_loop_rollout
 
@@ -61,42 +59,9 @@ def test_packed_pipeline_matches_per_instance(mod, T, u0):
         )
 
 
-def test_v3_kernel_matches_scan_large_dims():
-    """nx=5, nu=3 (no padding shortcuts), horizon not a chunk multiple."""
-    B, T, nx, nu = 6, 12, 5, 3
-    key = jax.random.PRNGKey(7)
-    ks = jax.random.split(key, 7)
-    dtype = jnp.float32
-    fx = 0.2 * jax.random.normal(ks[0], (B, T - 1, nx, nx), dtype) + jnp.eye(nx, dtype=dtype)
-    fu = jax.random.normal(ks[1], (B, T - 1, nx, nu), dtype)
-    gx = jax.random.normal(ks[2], (B, T, nx), dtype)
-    gu = jax.random.normal(ks[3], (B, T - 1, nu), dtype)
-
-    def spd(k, rows, d, scale=1.0):
-        A = jax.random.normal(k, (B, rows, d, d), dtype)
-        return scale * (A @ jnp.swapaxes(A, -1, -2)) + 2.0 * jnp.eye(d, dtype=dtype)
-
-    gxx = spd(ks[4], T, nx, 0.5)
-    guu = spd(ks[5], T - 1, nu)
-    gux = 0.2 * jax.random.normal(ks[6], (B, T - 1, nu, nx), dtype)
-    um = jnp.ones((T - 1, nu), bool)
-    ref = jax.vmap(
-        lambda *a: backward_pass_scan(*a, um, jnp.zeros((), dtype))
-    )(fx, fu, gx, gu, gxx, guu, gux)
-    out = backward_pass_batched_pallas_v3(
-        fx, fu, gx, gu, gxx, guu, gux, um, jnp.zeros((B,), dtype),
-        block_b=128, chunk=4, interpret=True,
-    )
-    for name, a, b in zip(["K", "k", "Qx", "Qu", "p"], ref[:5], out[:5]):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=2e-4, atol=2e-4, err_msg=name
-        )
-    assert bool(jnp.all(out[5]))
-
-
 def test_solve_with_packed_option_matches_scan_solve():
-    """backward_pass='packed' must not change solve semantics (on CPU it
-    falls back to the per-instance path; this pins the wiring)."""
+    """backward_pass='packed' must not change solve semantics (unbatched it
+    takes the per-instance path; this pins the wiring)."""
     T = 11
     from iterativelqr_tpu.models import particle
 
@@ -109,63 +74,3 @@ def test_solve_with_packed_option_matches_scan_solve():
     b = jax.jit(make_solve_fn(spec, Options(backward_pass="packed")))(xs, us, ws)
     np.testing.assert_allclose(np.asarray(a.xs), np.asarray(b.xs), atol=1e-12)
     assert int(a.iterations) == int(b.iterations)
-
-
-def test_multiref_streamed_outputs_large_dims():
-    """Quadrotor-scale dims (nx=12, nu=4, T=41): the direct full-horizon
-    VMEM output blocks would blow the 16MB scoped-VMEM limit, so
-    backward_pass_multiref must take the streamed-output kernel path
-    (packed per-chunk output DMA) and still match the scan backward."""
-    from iterativelqr_tpu.ops import packed_backward as pk
-
-    B, T, nx, nu = 1024, 41, 12, 4
-    Tm1 = T - 1
-    chunk = pk._auto_chunk(nx, nu)
-    assert pk._stream_outputs(nx, nu, pk._round_up(Tm1, chunk), chunk), \
-        "test premise: these dims must trigger output streaming"
-
-    key = jax.random.PRNGKey(3)
-    ks = jax.random.split(key, 7)
-    dtype = jnp.float32
-    fx = 0.1 * jax.random.normal(ks[0], (B, Tm1, nx, nx), dtype) + jnp.eye(
-        nx, dtype=dtype
-    )
-    fu = 0.5 * jax.random.normal(ks[1], (B, Tm1, nx, nu), dtype)
-    gx = jax.random.normal(ks[2], (B, T, nx), dtype)
-    gu = jax.random.normal(ks[3], (B, Tm1, nu), dtype)
-
-    def spd(k, rows, d, scale=1.0):
-        A = jax.random.normal(k, (B, rows, d, d), dtype)
-        return scale * (A @ jnp.swapaxes(A, -1, -2)) / d + 2.0 * jnp.eye(
-            d, dtype=dtype
-        )
-
-    gxx = spd(ks[4], T, nx, 0.5)
-    guu = spd(ks[5], Tm1, nu)
-    gux = 0.2 * jax.random.normal(ks[6], (B, Tm1, nu, nx), dtype)
-    um = jnp.ones((Tm1, nu), bool)
-
-    # SL layout [Tm1/T, *dims, S, 128]
-    S = B // 128
-    sl = lambda a: jnp.moveaxis(a, 0, -1).reshape(a.shape[1:] + (S, 128))
-    stacks = pk.pad_stacks_sl(
-        sl(fx), sl(fu), sl(gx), sl(gu), sl(gxx), sl(guu), sl(gux), um
-    )
-    stacks_p, gxxT, gxT, meta = stacks[:7], stacks[7], stacks[8], stacks[9]
-    reg_sl = jnp.zeros((S, 128), dtype)
-    out = pk.backward_pass_multiref(
-        stacks_p, gxxT, gxT, reg_sl, meta, interpret=True
-    )
-
-    ref = jax.vmap(
-        lambda *a: backward_pass_scan(*a, um, jnp.zeros((), dtype))
-    )(fx, fu, gx, gu, gxx, guu, gux)
-    unsl = lambda a: jnp.moveaxis(
-        a.reshape(a.shape[:-2] + (B,)), -1, 0
-    )
-    for name, a, b in zip(["K", "k", "Qx", "Qu", "p"], ref[:5], out[:5]):
-        np.testing.assert_allclose(
-            np.asarray(unsl(b)), np.asarray(a), rtol=3e-4, atol=3e-4,
-            err_msg=name,
-        )
-    assert bool(jnp.all(out[5] > 0.5))

@@ -1,6 +1,6 @@
 """Trajectory parity vs. an independent sequential implementation.
 
-BASELINE.json requires the TPU engine's solutions to match the reference
+BASELINE.json requires the engine's solutions to match the reference
 solver's state/control trajectories within tolerance on particle, car, and
 acrobot.  Julia is unavailable in this image, so the oracle is
 benchmarks/numpy_reference.py — the same AL-iLQR algorithm implemented

@@ -4,7 +4,8 @@ SL solver.
 Compaction only reschedules WHERE each lane's iterations run (chunked
 dispatches, lane moves between batch shapes); the per-instance update
 sequence is untouched, so every Solution field must match the single-shot
-SL solve exactly.  Run on CPU with the packed kernel in interpreter mode.
+SL solve exactly.  Run on CPU, where the backward recursion is the XLA scan
+reference.
 """
 
 import jax
@@ -74,7 +75,7 @@ def test_compacted_matches_single_shot_with_repack():
     T, B = 8, 2048
     spec, xs, us, ws = _spread_batch(T, B)
     opts = Options(batched_solver="sl", **_BASE)
-    ref = make_batched_solve_fn(spec, opts, interpret=True)(xs, us, ws)
+    ref = make_batched_solve_fn(spec, opts)(xs, us, ws)
     it = np.asarray(ref.iterations)
     # the scenario must actually have a tail that lets the driver re-pack:
     # at the iteration-18 chunk boundary, under half the batch still live
@@ -82,7 +83,7 @@ def test_compacted_matches_single_shot_with_repack():
     assert float((it > 18).mean()) < 0.5
     assert int(it.max()) > 18
     out = make_compacted_solve_fn(
-        spec, opts, chunk=6, interpret=True, rescue=False
+        spec, opts, chunk=6, rescue=False
     )(xs, us, ws)
     _assert_solutions_equal(out, ref)
 
@@ -92,25 +93,10 @@ def test_compacted_matches_single_shot_no_repack():
     T, B = 8, 64
     spec, xs, us, ws = _spread_batch(T, B)
     opts = Options(batched_solver="sl", **_BASE)
-    ref = make_batched_solve_fn(spec, opts, interpret=True)(xs, us, ws)
+    ref = make_batched_solve_fn(spec, opts)(xs, us, ws)
     out = make_compacted_solve_fn(
-        spec, opts, chunk=4, interpret=True, rescue=False
+        spec, opts, chunk=4, rescue=False
     )(xs, us, ws)
-    _assert_solutions_equal(out, ref)
-
-
-def test_compacted_program_cache_roundtrip(tmp_path):
-    """With cache_dir set, every driver program is exported to disk and a
-    fresh driver instance serves them from the cache (exercising _SLCarry
-    serialization through jax.export); results must match exactly."""
-    T, B = 8, 64
-    spec, xs, us, ws = _spread_batch(T, B)
-    opts = Options(batched_solver="sl", **_BASE)
-    kw = dict(chunk=4, interpret=True, cache_dir=str(tmp_path),
-              cache_key="t_compact")
-    ref = make_compacted_solve_fn(spec, opts, **kw)(xs, us, ws)
-    assert any(tmp_path.glob("t_compact_*.jaxprog")), "programs not cached"
-    out = make_compacted_solve_fn(spec, opts, **kw)(xs, us, ws)  # cache hits
     _assert_solutions_equal(out, ref)
 
 
@@ -119,14 +105,14 @@ def test_compacted_dual_warm_start():
     T, B = 8, 64
     spec, xs, us, ws = _spread_batch(T, B)
     opts = Options(batched_solver="sl", **_BASE)
-    cold = make_batched_solve_fn(spec, opts, interpret=True)(xs, us, ws)
+    cold = make_batched_solve_fn(spec, opts)(xs, us, ws)
     from iterativelqr_tpu.core.solve_sl import make_batched_solve_sl
 
     ref = make_batched_solve_sl(
-        spec, opts, interpret=True, dual_warm_start=True
+        spec, opts, dual_warm_start=True
     )(xs, us, ws, cold.duals, cold.penalty)
     out = make_compacted_solve_fn(
-        spec, opts, chunk=4, interpret=True, dual_warm_start=True,
+        spec, opts, chunk=4, dual_warm_start=True,
         rescue=False,
     )(xs, us, ws, cold.duals, cold.penalty)
     _assert_solutions_equal(out, ref)
@@ -163,12 +149,12 @@ def test_rescue_resolves_capped_failures():
     )
     tol = opts.constraint_tolerance
     bare = make_compacted_solve_fn(
-        spec, opts, chunk=8, interpret=True, rescue=False
+        spec, opts, chunk=8, rescue=False
     )(xs, us, ws)
     failed = np.flatnonzero(np.asarray(bare.max_violation) > tol)
     assert failed.size >= 1, "scenario no longer exercises the failure mode"
     out = make_compacted_solve_fn(
-        spec, opts, chunk=8, interpret=True, rescue=True
+        spec, opts, chunk=8, rescue=True
     )(xs, us, ws)
     v = np.asarray(out.max_violation)
     assert bool((v <= tol).all()), f"rescue left lanes infeasible: {v.max()}"
@@ -178,8 +164,7 @@ def test_rescue_resolves_capped_failures():
 
     ref = make_batched_solve_fn(
         spec, _dc.replace(opts, early_round_iteration_cap=None),
-        interpret=True,
-    )(xs, us, ws)
+        )(xs, us, ws)
     ok = np.setdiff1d(np.arange(B), failed)
     for name in ("xs", "us", "objective", "max_violation", "iterations",
                  "duals", "penalty"):
@@ -202,19 +187,19 @@ def test_compacted_multi_device_matches_single():
     T, B = 8, 2048
     spec, xs, us, ws = _spread_batch(T, B)
     opts = Options(batched_solver="sl", **_BASE)
-    ref = make_compacted_solve_fn(spec, opts, chunk=6, interpret=True)(
+    ref = make_compacted_solve_fn(spec, opts, chunk=6)(
         xs, us, ws
     )
     devs = jax.devices()[:2]
     assert len(devs) == 2
     out = make_compacted_solve_fn(
-        spec, opts, chunk=6, interpret=True, devices=devs
+        spec, opts, chunk=6, devices=devs
     )(xs, us, ws)
     _assert_solutions_equal(out, ref)
 
 
 def test_generalized_rescue_resolves_uncapped_failures():
-    """VERDICT r3 #6: lanes that exit infeasible under ANY schedule (no
+    """lanes that exit infeasible under ANY schedule (no
     early_round_iteration_cap involved) get one grain-sized re-solve under
     ``rescue_options`` and their Solution rows patched.  Scenario: a
     deliberately tight iteration budget leaves 11/16 lanes infeasible; the
@@ -233,7 +218,7 @@ def test_generalized_rescue_resolves_uncapped_failures():
     )
     tol = opts.constraint_tolerance
     bare = make_compacted_solve_fn(
-        spec, opts, chunk=8, interpret=True, rescue=False
+        spec, opts, chunk=8, rescue=False
     )(xs, us, ws)
     failed = np.flatnonzero(
         ~(np.asarray(bare.max_violation) <= tol)
@@ -243,7 +228,7 @@ def test_generalized_rescue_resolves_uncapped_failures():
     ropts = _dc.replace(opts, max_iterations=30, max_dual_updates=10,
                         regularization_initial=1e-3)
     out = make_compacted_solve_fn(
-        spec, opts, chunk=8, interpret=True, rescue=True,
+        spec, opts, chunk=8, rescue=True,
         rescue_options=ropts,
     )(xs, us, ws)
     v = np.asarray(out.max_violation)
@@ -251,7 +236,7 @@ def test_generalized_rescue_resolves_uncapped_failures():
 
     # rescued rows are exactly the rescue-schedule solver's results from the
     # ORIGINAL inputs; untouched rows are exactly the bare driver's
-    ref = make_batched_solve_fn(spec, ropts, interpret=True)(xs, us, ws)
+    ref = make_batched_solve_fn(spec, ropts)(xs, us, ws)
     ok = np.setdiff1d(np.arange(B), failed)
     for name in ("xs", "us", "objective", "max_violation", "iterations",
                  "duals", "penalty"):
@@ -283,7 +268,7 @@ def test_rescue_detects_nan_lanes(caplog):
     with caplog.at_level(logging.WARNING,
                          logger="iterativelqr_tpu.core.solve_compact"):
         out = make_compacted_solve_fn(
-            spec, opts, chunk=8, interpret=True, rescue=True
+            spec, opts, chunk=8, rescue=True
         )(xs, us, ws)
     assert any("strong rescue" in r.message for r in caplog.records), (
         "NaN lane did not trigger the strong rescue"

@@ -1,9 +1,10 @@
 """SL-layout batched solver (core/solve_sl.py) vs the vmap path.
 
-The SL solver runs the ENTIRE fused AL x iLQR loop tile-aligned
+The SL solver runs the ENTIRE fused AL x iLQR loop in SL layout
 ``[T, *dims, S, 128]``; per-instance semantics must match vmapping the
 per-instance fused solve (same iterate sequence, stopping rules, dual-update
-points).  On CPU the packed pallas kernel runs in interpreter mode.
+points).  On CPU the backward recursion is the XLA scan reference; the
+kernel is pinned against it in tests/test_riccati_kernel.py.
 """
 
 import jax
@@ -46,14 +47,13 @@ _BASE = dict(
 def test_sl_solver_matches_vmap(mod, T, u0):
     B = 4
     spec, xs, us, ws = _batch(mod, T, B, u0)
-    # vmap reference: custom_vmap falls back to the per-instance scan path
-    # off-TPU, which the packed pipeline is already pinned against
+    # vmap reference: without the kernel the custom_vmap rule takes the
+    # per-instance scan path, which the packed pipeline is pinned against
     ref_fn = make_batched_solve_fn(
         spec, Options(batched_solver="vmap", **_BASE)
     )
     sl_fn = make_batched_solve_fn(
-        spec, Options(batched_solver="sl", **_BASE), interpret=True
-    )
+        spec, Options(batched_solver="sl", **_BASE))
     ref = ref_fn(xs, us, ws)
     out = sl_fn(xs, us, ws)
     for name in ("xs", "us", "objective", "max_violation", "gradient_norm"):
@@ -79,10 +79,9 @@ def test_sl_solver_shared_ws_in_axes():
     spec, xs, us, ws = _batch(acrobot, 9, B, 0.05)
     opts = Options(batched_solver="sl", **_BASE)
     fn = make_batched_solve_fn(
-        spec, opts, in_axes=(0, 0, None), interpret=True
-    )
+        spec, opts, in_axes=(0, 0, None))
     out = fn(xs, us, ws[0])
-    fn_b = make_batched_solve_fn(spec, opts, interpret=True)
+    fn_b = make_batched_solve_fn(spec, opts)
     ref = fn_b(xs, us, ws)
     np.testing.assert_allclose(
         np.asarray(out.xs), np.asarray(ref.xs), rtol=1e-6, atol=1e-6
@@ -96,8 +95,7 @@ def test_sl_requires_compatible_options():
             spec,
             Options(batched_solver="sl", record_traces=True,
                     backward_pass="packed"),
-            interpret=True,
-        )
+            )
 
 
 def test_sl_solver_unconstrained_nc0():
@@ -128,8 +126,7 @@ def test_sl_solver_unconstrained_nc0():
         spec, Options(batched_solver="vmap", **base)
     )(xs, us, ws)
     out = make_batched_solve_fn(
-        spec, Options(batched_solver="sl", **base), interpret=True
-    )(xs, us, ws)
+        spec, Options(batched_solver="sl", **base))(xs, us, ws)
     assert int(np.max(np.asarray(ref.iterations))) > 1
     np.testing.assert_array_equal(
         np.asarray(out.iterations), np.asarray(ref.iterations)
@@ -162,11 +159,10 @@ def test_sl_sharded_matches_unsharded():
     mesh = default_mesh()
     assert mesh.size == 8
     sharded = make_sharded_solve_fn(
-        spec, opts, mesh=mesh, with_stats=True, interpret=True
-    )
+        spec, opts, mesh=mesh, with_stats=True)
     xs_s, us_s, ws_s = shard_batch(mesh, "batch", xs, us, ws)
     sol_s, stats = sharded(xs_s, us_s, ws_s)
-    ref = make_batched_solve_fn(spec, opts, interpret=True)(xs, us, ws)
+    ref = make_batched_solve_fn(spec, opts)(xs, us, ws)
     np.testing.assert_allclose(
         np.asarray(sol_s.xs), np.asarray(ref.xs), rtol=1e-5, atol=1e-5
     )
@@ -176,8 +172,26 @@ def test_sl_sharded_matches_unsharded():
     assert np.isfinite(float(stats.mean_objective))
 
 
-def test_auto_selects_vmap_off_tpu():
-    """auto on CPU (no interpret) must silently use the vmap path."""
+@pytest.mark.parametrize(
+    "solver,platform,want",
+    [("auto", "cpu", False), ("auto", "gpu", True), ("vmap", "gpu", False),
+     ("sl", "cpu", True)],
+)
+def test_use_sl_solver_by_platform(solver, platform, want):
+    """batched_solver="auto" takes the SL solver on the GPU (the measured
+    winner) and vmap on the CPU; "sl" and "vmap" are not overridden."""
+    from iterativelqr_tpu.parallel.batch import use_sl_solver
+
+    opts = Options(batched_solver=solver, **_BASE)
+    assert use_sl_solver(opts, platform=platform) == want
+    # ineligible options never take the SL solver under auto
+    traced = Options(batched_solver=solver, **dict(_BASE, record_traces=True))
+    if solver == "auto":
+        assert not use_sl_solver(traced, platform=platform)
+
+
+def test_auto_selects_vmap_on_cpu():
+    """auto on CPU must silently use the vmap path (use_sl_solver)."""
     spec, xs, us, ws = _batch(acrobot, 9, 2, 0.05)
     fn = make_batched_solve_fn(
         spec, Options(batched_solver="auto", **_BASE)
@@ -197,8 +211,7 @@ def test_sl_matches_vmap_with_early_round_cap():
         spec, Options(batched_solver="vmap", **base)
     )(xs, us, ws)
     out = make_batched_solve_fn(
-        spec, Options(batched_solver="sl", **base), interpret=True
-    )(xs, us, ws)
+        spec, Options(batched_solver="sl", **base))(xs, us, ws)
     # the cap must actually fire somewhere (rounds of exactly 3 iterations)
     assert int(np.max(np.asarray(ref.al_iterations))) >= 2
     np.testing.assert_array_equal(
@@ -223,15 +236,13 @@ def test_sl_dual_warm_start_matches_vmap():
     base = dict(_BASE)
     # carried duals/penalties from a cold solve
     cold = make_batched_solve_fn(
-        spec, Options(batched_solver="sl", **base), interpret=True
-    )(xs, us, ws)
+        spec, Options(batched_solver="sl", **base))(xs, us, ws)
     duals0, pen0 = cold.duals, cold.penalty
     ref = make_batched_solve_fn(
         spec, Options(batched_solver="vmap", **base), dual_warm_start=True
     )(xs, us, ws, duals0, pen0)
     out = make_batched_solve_fn(
-        spec, Options(batched_solver="sl", **base), interpret=True,
-        dual_warm_start=True,
+        spec, Options(batched_solver="sl", **base), dual_warm_start=True,
     )(xs, us, ws, duals0, pen0)
     np.testing.assert_array_equal(
         np.asarray(out.iterations), np.asarray(ref.iterations)
@@ -281,8 +292,7 @@ def test_consecutive_truncation_limiter_restores_convergence():
 
     def run(**kw):
         return make_batched_solve_fn(
-            spec, Options(**base, **kw), interpret=True
-        )(xs, us, ws)
+            spec, Options(**base, **kw))(xs, us, ws)
 
     tol = Options(**base).constraint_tolerance
     ref = run()  # uncapped
@@ -320,19 +330,17 @@ def test_consecutive_truncation_limiter_restores_convergence():
 
 def test_sl_constraint_aware_acceptance_matches_vmap():
     """constraint_aware_acceptance on the SL path (batched MPC farms keep
-    the SL layout — round-4 verdict item 6): per-candidate violations are
+    the SL layout): per-candidate violations are
     accumulated in the SL scoring scan's carry and the preference rule
     must pick the same candidates as the vmap path (ops/forward.py)."""
     B = 4
     spec, xs, us, ws = _batch(acrobot, 9, B, 0.05)
-    opts = dict(_BASE, constraint_aware_acceptance=True,
-                forward_kernel="scan")
+    opts = dict(_BASE, constraint_aware_acceptance=True)
     ref = make_batched_solve_fn(
         spec, Options(batched_solver="vmap", **opts)
     )(xs, us, ws)
     out = make_batched_solve_fn(
-        spec, Options(batched_solver="sl", **opts), interpret=True
-    )(xs, us, ws)
+        spec, Options(batched_solver="sl", **opts))(xs, us, ws)
     for name in ("xs", "us", "objective", "max_violation", "step_size"):
         np.testing.assert_allclose(
             np.asarray(getattr(out, name)),
@@ -360,13 +368,12 @@ def test_sl_constraint_aware_two_block_tail():
     spec, xs, us, ws = _batch(car, 8, B, 0.01)
     # na = 17 with the reference min_step_size -> head 8 + tail 9
     opts = dict(_BASE, constraint_aware_acceptance=True,
-                forward_kernel="scan", min_step_size=1.0e-5)
+                min_step_size=1.0e-5)
     ref = make_batched_solve_fn(
         spec, Options(batched_solver="vmap", **opts)
     )(xs, us, ws)
     out = make_batched_solve_fn(
-        spec, Options(batched_solver="sl", **opts), interpret=True
-    )(xs, us, ws)
+        spec, Options(batched_solver="sl", **opts))(xs, us, ws)
     np.testing.assert_array_equal(
         np.asarray(out.iterations), np.asarray(ref.iterations)
     )

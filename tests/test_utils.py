@@ -1,4 +1,4 @@
-"""Unit tests: program cache (jax.export) and checkpoint round-trips."""
+"""Unit tests: checkpoint round-trips, solver shell, small utilities."""
 
 import os
 import tempfile
@@ -6,42 +6,14 @@ import tempfile
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from iterativelqr_tpu import Options
 from iterativelqr_tpu.core.mpc import MPCState
 from iterativelqr_tpu.core.solve import make_solve_fn
 from iterativelqr_tpu.core.spec import build_spec
 from iterativelqr_tpu.models import particle
-from iterativelqr_tpu.utils import checkpoint
-from iterativelqr_tpu.utils.program_cache import cached_program
-
-
-def test_program_cache_roundtrip(tmp_path):
-    T = 7
-    dynamics, objective, constraints, x1, xT = particle.problem(T)
-    spec = build_spec(dynamics, objective, constraints)
-    opts = Options(verbose=False)
-    xs = jnp.zeros((T, spec.nx), jnp.float64)
-    us = jnp.zeros((T - 1, spec.nu), jnp.float64)
-    ws = jnp.zeros((T, max(spec.npar, 0)), jnp.float64)
-
-    calls = []
-
-    def make():
-        calls.append(1)
-        return make_solve_fn(spec, opts)
-
-    fn1 = cached_program(make, "t_cache", (xs, us, ws), cache_dir=str(tmp_path))
-    out1 = fn1(xs, us, ws)
-    assert len(calls) == 1
-    fn2 = cached_program(make, "t_cache", (xs, us, ws), cache_dir=str(tmp_path))
-    out2 = fn2(xs, us, ws)
-    assert len(calls) == 1  # hit: make() not called again
-    np.testing.assert_array_equal(np.asarray(out1.xs), np.asarray(out2.xs))
-    np.testing.assert_array_equal(np.asarray(out1.us), np.asarray(out2.us))
-    # different key -> fresh lowering
-    cached_program(make, "t_cache_2", (xs, us, ws), cache_dir=str(tmp_path))
-    assert len(calls) == 2
+from iterativelqr_tpu.utils import checkpoint, compile_cache
 
 
 def _state():
@@ -57,6 +29,32 @@ def _state():
 def _like():
     s = _state()
     return jax.tree.map(jnp.zeros_like, s)
+
+
+@pytest.fixture
+def restore_cache_dir():
+    before = jax.config.jax_compilation_cache_dir
+    yield
+    jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_compile_cache_uses_env_dir(tmp_path, monkeypatch, restore_cache_dir):
+    """JAX_COMPILATION_CACHE_DIR, when set, is used as is."""
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "jc"))
+    assert compile_cache.setup_compile_cache() == str(tmp_path / "jc")
+    assert jax.config.jax_compilation_cache_dir == str(tmp_path / "jc")
+
+
+def test_compile_cache_default_dir_in_checkout(monkeypatch, restore_cache_dir):
+    """Unset, the cache is a fixed directory inside the checkout, listed in
+    .gitignore."""
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = compile_cache.setup_compile_cache()
+    assert path == os.path.join(repo, ".jax_cache")
+    assert jax.config.jax_compilation_cache_dir == path
+    with open(os.path.join(repo, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -190,7 +188,7 @@ def test_checkpoint_orbax_dir_without_orbax_raises(tmp_path, monkeypatch):
 
 
 def test_distributed_initialize_reraises_genuine_failures(monkeypatch):
-    """Only the already-initialized case is benign (ADVICE r1): a bad
+    """Only the already-initialized case is benign: a bad
     coordinator address must raise, not silently degrade to single-host."""
     from iterativelqr_tpu.parallel import shard
 
@@ -214,7 +212,7 @@ def test_distributed_initialize_reraises_genuine_failures(monkeypatch):
 
 def test_converged_uses_options_tolerance():
     """Solution.converged reflects the constraint_tolerance the solve ran
-    with, not a hardcoded 5e-3 (VERDICT r1 weak #4)."""
+    with, not a hardcoded 5e-3."""
     T = 11
     dynamics, objective, constraints, x1, xT = particle.problem(T)
     spec = build_spec(dynamics, objective, constraints)
